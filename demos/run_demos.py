@@ -2,7 +2,7 @@
 
 The reference ships interactive GDScript scenes (project/demos/: raytracer,
 renderer, lighting, pbr, normal_map, panorama, layer, probe, gi_comparison,
-rt_graphics, example).  Headless TPU equivalents render the same scenarios
+rt_graphics, example).  Headless equivalents render the same scenarios
 to PPM images:
 
     python demos/run_demos.py [demo ...]      # default: all
@@ -21,19 +21,20 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import messyerraytracer_tpu as mrt  # noqa: E402
-from messyerraytracer_tpu.api.service import RayTracerService, probe_cast  # noqa: E402
-from messyerraytracer_tpu.debug.debug import (  # noqa: E402
+import messyerraytracer as mrt  # noqa: E402
+from messyerraytracer.api.service import RayTracerService, probe_cast  # noqa: E402
+from messyerraytracer.debug.debug import (  # noqa: E402
     DRAW_NORMALS,
     cast_debug_rays,
     stats_summary,
 )
-from messyerraytracer_tpu.render import framebuffer as fbch  # noqa: E402
-from messyerraytracer_tpu.render.camera import CameraParams, generate_rays  # noqa: E402
-from messyerraytracer_tpu.render.pathtrace import PathTracer, PathTraceParams  # noqa: E402
-from messyerraytracer_tpu.render.reflections import RTReflections  # noqa: E402
-from messyerraytracer_tpu.render.renderer import RayRenderer, RenderSettings  # noqa: E402
-from messyerraytracer_tpu.render.shade import (  # noqa: E402
+from messyerraytracer.render import framebuffer as fbch  # noqa: E402
+from messyerraytracer.render.camera import CameraParams, generate_rays  # noqa: E402
+from messyerraytracer.render.pathtrace import PathTracer, PathTraceParams  # noqa: E402
+from messyerraytracer.render.reflections import RTReflections  # noqa: E402
+from messyerraytracer.utils.compile_cache import enable_compile_cache  # noqa: E402
+from messyerraytracer.render.renderer import RayRenderer, RenderSettings  # noqa: E402
+from messyerraytracer.render.shade import (  # noqa: E402
     LIGHT_DIRECTIONAL,
     LIGHT_POINT,
     LIGHT_SPOT,
@@ -41,8 +42,8 @@ from messyerraytracer_tpu.render.shade import (  # noqa: E402
     make_lights,
     make_materials,
 )
-from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array  # noqa: E402
-from messyerraytracer_tpu.utils import meshes  # noqa: E402
+from messyerraytracer.scene.scene import build_scene_from_tri_array  # noqa: E402
+from messyerraytracer.utils import meshes  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "out")
 W, H = 320, 240
@@ -121,8 +122,8 @@ def demo_pbr():
     textured floor sampled through the atlas (pbr_demo.gd)."""
     import jax.numpy as jnp
 
-    from messyerraytracer_tpu.core.attributes import make_attributes
-    from messyerraytracer_tpu.render.textures import TextureRegistry
+    from messyerraytracer.core.attributes import make_attributes
+    from messyerraytracer.render.textures import TextureRegistry
 
     spheres, mat_ids, mats_albedo, mats_metal, mats_rough = [], [], [], [], []
     k = 0
@@ -182,8 +183,8 @@ def demo_normal_map():
     extract_surface (normal_map_demo.gd; shade_pass.h:527-553)."""
     import jax.numpy as jnp
 
-    from messyerraytracer_tpu.core.attributes import make_attributes
-    from messyerraytracer_tpu.render.textures import TextureRegistry
+    from messyerraytracer.core.attributes import make_attributes
+    from messyerraytracer.render.textures import TextureRegistry
 
     tri = meshes.plane(6.0, y=0.0, subdiv=8)
     t = tri.shape[0]
@@ -228,7 +229,7 @@ def demo_panorama():
     as a Radiance RGBE file and loaded back through the cached
     ``load_panorama`` (the reference loads gradient_sky.hdr through its
     panorama cache, ray_renderer.cpp:679-704)."""
-    from messyerraytracer_tpu.render.hdr import load_panorama, write_hdr
+    from messyerraytracer.render.hdr import load_panorama, write_hdr
 
     # procedural sky panorama: horizontal hue gradient + bright band
     ph, pw = 64, 128
@@ -375,6 +376,7 @@ DEMOS = {
 
 
 def main(argv):
+    enable_compile_cache()
     names = argv[1:] or list(DEMOS)
     for name in names:
         print(f"[{name}]")

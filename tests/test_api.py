@@ -4,27 +4,27 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from messyerraytracer_tpu.api.service import (
+from messyerraytracer.api.service import (
     MODE_ANY_HIT,
     RayBatch,
     RayQuery,
     RayTracerService,
     probe_cast,
 )
-from messyerraytracer_tpu.core.attributes import (
+from messyerraytracer.core.attributes import (
     interpolate_normal,
     interpolate_tangent,
     interpolate_uv,
     make_attributes,
     perturb_normal,
 )
-from messyerraytracer_tpu.core.types import make_rays
-from messyerraytracer_tpu.render.textures import (
+from messyerraytracer.core.types import make_rays
+from messyerraytracer.render.textures import (
     TextureRegistry,
     sample_bilinear,
     sample_nearest,
 )
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.utils import meshes
 
 
 def translate(t):
@@ -62,7 +62,7 @@ class TestService:
         assert res.elapsed_ms > 0
         s = service.get_last_stats()
         assert s["rays_cast"] == 300
-        assert s["backend"] == "cluster"
+        assert s["backend"] == "kernel"
 
     def test_any_hit_mode(self, service):
         rays = make_rays(
@@ -83,7 +83,7 @@ class TestService:
         r = service.cast_ray((0.11, 0.07, 4), (0, 0, -1))
         assert r["hit"]
         service.set_backend("auto")
-        assert service.get_backend() == "cluster"
+        assert service.get_backend() == "kernel"
 
     def test_frontier_backends_reachable(self, service):
         # the documented 5-backend switch must accept the frontier modes
@@ -198,9 +198,9 @@ class TestTextures:
 
 class TestSerialization:
     def test_save_load_roundtrip(self, tmp_path):
-        from messyerraytracer_tpu.scene.serialize import load_scene, save_scene
-        from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array
-        from messyerraytracer_tpu.core.brute import cast_rays_brute
+        from messyerraytracer.scene.serialize import load_scene, save_scene
+        from messyerraytracer.scene.scene import build_scene_from_tri_array
+        from messyerraytracer.core.brute import cast_rays_brute
 
         scene = build_scene_from_tri_array(meshes.uv_sphere(1.0, 8, 16))
         p = str(tmp_path / "scene.npz")

@@ -8,7 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from messyerraytracer_tpu.core.types import (
+from messyerraytracer.core.types import (
     ALL_LAYERS,
     NO_HIT,
     T_MAX_DEFAULT,
@@ -16,14 +16,14 @@ from messyerraytracer_tpu.core.types import (
     make_triangles,
     safe_inv_direction,
 )
-from messyerraytracer_tpu.core.geometry import moller_trumbore, slab_test
-from messyerraytracer_tpu.core.brute import any_hit_brute, cast_rays_brute
-from messyerraytracer_tpu.render.camera import (
+from messyerraytracer.core.geometry import moller_trumbore, slab_test
+from messyerraytracer.core.brute import any_hit_brute, cast_rays_brute
+from messyerraytracer.render.camera import (
     CameraParams,
     debug_grid_rays,
     generate_rays,
 )
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.utils import meshes
 
 
 def single_tri(v0, v1, v2, **kw):

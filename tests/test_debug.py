@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from messyerraytracer_tpu.debug.debug import (
+from messyerraytracer.debug.debug import (
     DRAW_DISTANCE,
     DRAW_HEATMAP,
     DRAW_LAYERS,
@@ -13,9 +13,9 @@ from messyerraytracer_tpu.debug.debug import (
     cast_debug_rays,
     per_ray_cost_heatmap,
 )
-from messyerraytracer_tpu.render.camera import debug_grid_rays
-from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.render.camera import debug_grid_rays
+from messyerraytracer.scene.scene import build_scene_from_tri_array
+from messyerraytracer.utils import meshes
 
 
 def small_scene(backend="jnp"):
@@ -55,7 +55,7 @@ class TestPerRayCost:
         rays = debug_grid_rays((0, 0, 4), (0, 0, -1), 16, 12, 60.0)
         colors, tt, nv = per_ray_cost_heatmap(scene, rays)
         assert tt.shape == (192,) and nv.shape == (192,)
-        from messyerraytracer_tpu.accel.frontier import cast_rays_frontier
+        from messyerraytracer.accel.frontier import cast_rays_frontier
 
         _, stats, _ = cast_rays_frontier(rays, scene.frontier, scene.tris)
         assert abs(tt.sum() - float(stats.tri_tests)) < 1e-3

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from messyerraytracer_tpu.core.brute import cast_rays_brute
-from messyerraytracer_tpu.core.types import make_rays
-from messyerraytracer_tpu.dispatch.morton import (
+from messyerraytracer.core.brute import cast_rays_brute
+from messyerraytracer.core.types import make_rays
+from messyerraytracer.dispatch.morton import (
     apply_permutation,
     morton_encode_3d,
     morton_spread_10,
@@ -15,9 +15,9 @@ from messyerraytracer_tpu.dispatch.morton import (
     unshuffle_flags,
     unshuffle_hits,
 )
-from messyerraytracer_tpu.dispatch.dispatcher import RayDispatcher
-from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.dispatch.dispatcher import RayDispatcher
+from messyerraytracer.scene.scene import build_scene_from_tri_array
+from messyerraytracer.utils import meshes
 
 
 def random_rays(n, seed=0, extent=3.0):
@@ -92,10 +92,8 @@ class TestDispatcher:
         np.testing.assert_array_equal(
             np.asarray(hits.prim_id), np.asarray(ref.prim_id)
         )
-        # 1e-5: the cluster kernel computes t via re-anchored Plucker
-        # bilinear forms — a different (equally exact) f32 rounding path
-        # than sequential MT, last-ulp class apart (kernels/cluster.py
-        # module docstring; PERF.md round-3)
+        # 1e-5: the kernel's per-component MT and the oracle's broadcast
+        # MT round differently in the last ulps
         np.testing.assert_allclose(np.asarray(hits.t), np.asarray(ref.t), rtol=1e-5)
         # coherent hint path
         hits2, _ = disp.cast_rays(rays, coherent=True)
@@ -167,7 +165,7 @@ class TestDispatcher:
             assert int(stats.hits) == int(ref_stats.hits)
 
     def test_any_hit_dispatch(self):
-        from messyerraytracer_tpu.core.brute import any_hit_brute
+        from messyerraytracer.core.brute import any_hit_brute
 
         scene = build_scene_from_tri_array(
             meshes.uv_sphere(radius=1.0, rings=8, segments=16)
@@ -184,7 +182,7 @@ class TestDispatcher:
         path — caps are conservative by construction and any proxy-vs-
         main formulation crack is rescued with an uncapped re-cast
         (dispatch/dispatcher.py::_cast_two_pass)."""
-        from messyerraytracer_tpu.dispatch import dispatcher as dm
+        from messyerraytracer.dispatch import dispatcher as dm
 
         monkeypatch.setattr(dm, "PROXY_MIN_BATCH", 256)
         scene = build_scene_from_tri_array(
@@ -193,7 +191,6 @@ class TestDispatcher:
                                  center=(0, 1.2, 0)),
                 meshes.plane(6.0, y=0.0, subdiv=10),
             ]),
-            backend="cluster",
         )
         rays = random_rays(768, seed=4)
         h0, s0 = RayDispatcher(scene, proxy=False).cast_rays(rays)

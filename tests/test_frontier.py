@@ -9,15 +9,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import messyerraytracer_tpu as mrt
-from messyerraytracer_tpu.accel.frontier import (
+import messyerraytracer as mrt
+from messyerraytracer.accel.frontier import (
     build_frontier_scene,
     cast_rays_frontier,
 )
-from messyerraytracer_tpu.core.brute import any_hit_brute, cast_rays_brute
-from messyerraytracer_tpu.core.types import Rays, make_rays
-from messyerraytracer_tpu.scene.scene import build_scene, build_scene_from_tri_array
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.core.brute import any_hit_brute, cast_rays_brute
+from messyerraytracer.core.types import Rays, make_rays
+from messyerraytracer.scene.scene import build_scene, build_scene_from_tri_array
+from messyerraytracer.utils import meshes
 
 
 def _scene_and_rays():

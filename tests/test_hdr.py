@@ -10,7 +10,7 @@ import os
 
 import numpy as np
 
-from messyerraytracer_tpu.render.hdr import (
+from messyerraytracer.render.hdr import (
     load_panorama,
     read_hdr,
     write_hdr,
@@ -77,7 +77,7 @@ def test_panorama_cache(tmp_path):
 def test_feeds_sample_panorama(tmp_path):
     import jax.numpy as jnp
 
-    from messyerraytracer_tpu.render.shade import sample_panorama
+    from messyerraytracer.render.shade import sample_panorama
 
     img = np.zeros((8, 16, 3), np.float32)
     img[:, :, 0] = np.linspace(0, 1, 16)[None, :]

@@ -3,14 +3,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from messyerraytracer_tpu.render.camera import CameraParams, generate_rays
-from messyerraytracer_tpu.render.reflections import (
+from messyerraytracer.render.camera import CameraParams, generate_rays
+from messyerraytracer.render.reflections import (
     ReflectionSettings,
     RTReflections,
 )
-from messyerraytracer_tpu.render.shade import make_environment
-from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.render.shade import make_environment
+from messyerraytracer.scene.scene import build_scene_from_tri_array
+from messyerraytracer.utils import meshes
 
 
 def mirror_floor_scene():

@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from messyerraytracer_tpu.render import framebuffer as fbch
-from messyerraytracer_tpu.render.camera import CameraParams, generate_rays
-from messyerraytracer_tpu.render.renderer import RayRenderer, RenderSettings, halton
-from messyerraytracer_tpu.render.pathtrace import (
+from messyerraytracer.render import framebuffer as fbch
+from messyerraytracer.render.camera import CameraParams, generate_rays
+from messyerraytracer.render.renderer import RayRenderer, RenderSettings, halton
+from messyerraytracer.render.pathtrace import (
     PathTracer,
     PathTraceParams,
     construct_onb,
@@ -15,7 +15,7 @@ from messyerraytracer_tpu.render.pathtrace import (
     pcg32_float,
     pcg32_seed,
 )
-from messyerraytracer_tpu.render.shade import (
+from messyerraytracer.render.shade import (
     LIGHT_DIRECTIONAL,
     LIGHT_POINT,
     distance_attenuation,
@@ -26,8 +26,8 @@ from messyerraytracer_tpu.render.shade import (
     sky_color,
     tonemap,
 )
-from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.scene.scene import build_scene_from_tri_array
+from messyerraytracer.utils import meshes
 
 
 def room_scene():

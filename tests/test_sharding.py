@@ -1,20 +1,20 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh."""
+"""Multi-device sharding tests on the 8-device virtual CPU mesh."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from messyerraytracer_tpu.core.types import make_rays
-from messyerraytracer_tpu.parallel.sharding import (
+from messyerraytracer.core.types import make_rays
+from messyerraytracer.parallel.sharding import (
     cast_rays_sharded,
     make_mesh,
     render_step_sharded,
 )
-from messyerraytracer_tpu.render.camera import CameraParams
-from messyerraytracer_tpu.render.shade import make_environment, make_lights
-from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.render.camera import CameraParams
+from messyerraytracer.render.shade import make_environment, make_lights
+from messyerraytracer.scene.scene import build_scene_from_tri_array
+from messyerraytracer.utils import meshes
 
 
 @pytest.fixture(scope="module")
@@ -47,15 +47,26 @@ class TestShardedCast:
         np.testing.assert_allclose(
             np.asarray(hits_s.t), np.asarray(hits_1.t), rtol=1e-6
         )
-        # psum-merged stats: hit counts are exact invariants; tri_tests
-        # is an order-dependent WORK counter (drain order differs with
-        # tile composition, so cap culling differs) — same ballpark only
+        # psum-merged stats: each ray walks alone, so the per-ray work
+        # counters sum to exactly the single-device totals
         assert int(stats_s.hits) == int(stats_1.hits)
-        assert 0 < int(stats_s.tri_tests) < 4 * int(stats_1.tri_tests)
+        assert int(stats_s.tri_tests) == int(stats_1.tri_tests)
+        assert int(stats_s.bvh_nodes_visited) == int(
+            stats_1.bvh_nodes_visited)
+
+    def test_repeat_call_reuses_compiled_program(self, scene):
+        from messyerraytracer.parallel.sharding import _cast_sharded_jit
+
+        mesh = make_mesh(8)
+        rays = random_rays(1024, seed=3)
+        cast_rays_sharded(rays, scene, mesh)
+        compiled = _cast_sharded_jit._cache_size()
+        cast_rays_sharded(random_rays(1024, seed=4), scene, mesh)
+        assert _cast_sharded_jit._cache_size() == compiled
 
     def test_non_divisible_ray_count(self, scene):
         mesh = make_mesh(8)
-        rays = random_rays(1000, seed=2)  # not divisible by 8*1024
+        rays = random_rays(1000, seed=2)  # not divisible by 8*BLOCK
         hits_s, stats_s, _ = cast_rays_sharded(rays, scene, mesh)
         hits_1, _ = scene.cast_rays(rays)
         np.testing.assert_array_equal(
@@ -93,7 +104,7 @@ class TestSceneSharded:
     replicated, closest hit combined over the collective axis."""
 
     def test_matches_single_scene(self):
-        from messyerraytracer_tpu.parallel.sharding import (
+        from messyerraytracer.parallel.sharding import (
             build_sharded_scene,
             cast_rays_scene_sharded,
         )
@@ -103,8 +114,7 @@ class TestSceneSharded:
             meshes.uv_sphere(0.7, 8, 16, center=(1.5, 0.3, 0)),
             meshes.plane(8.0, y=-1.2, subdiv=6),
         ])
-        # apples-to-apples: the scene-parallel axis runs the wide kernel
-        single = build_scene_from_tri_array(tris, backend="pallas")
+        single = build_scene_from_tri_array(tris)
         mesh = make_mesh(8)
         stacked, meta, id_maps = build_sharded_scene(tris, 8)
         rays = random_rays(1024, seed=7)
@@ -119,16 +129,18 @@ class TestSceneSharded:
             np.asarray(hits_s.t), np.asarray(hits_1.t), rtol=1e-6
         )
         assert int(stats_s.hits) == int(np.asarray(hits_1.hit).sum())
+        assert int(stats_s.stack_drops) == 0
 
     def test_shard_memory_is_partitioned(self):
-        from messyerraytracer_tpu.parallel.sharding import (
+        from messyerraytracer.parallel.sharding import (
             build_sharded_scene,
         )
 
         tris = meshes.uv_sphere(1.0, 16, 32)
         stacked, meta, id_maps = build_sharded_scene(tris, 8)
-        # each shard's leaf table holds ~1/8 of the triangles
-        single = build_scene_from_tri_array(tris, backend="pallas")
-        per_shard_rows = stacked["leaf_tris"].shape[1]
-        single_rows = single.wide.leaf_tris.shape[0]
+        # each shard's triangle table holds ~1/8 of the triangles
+        single = build_scene_from_tri_array(tris)
+        per_shard_rows = stacked["v0"].shape[1]
+        single_rows = single.tris.v0.shape[0]
         assert per_shard_rows < single_rows / 2
+        assert stacked["aabb_min"].shape[1] < single.bvh.num_nodes / 2

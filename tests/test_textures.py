@@ -9,18 +9,18 @@ modulation, smooth normals, and TBN normal-map perturbation.
 import numpy as np
 import jax.numpy as jnp
 
-from messyerraytracer_tpu.core.attributes import (
+from messyerraytracer.core.attributes import (
     interpolate_normal,
     interpolate_tangent,
     interpolate_uv,
     make_attributes,
     perturb_normal,
 )
-from messyerraytracer_tpu.core.types import make_rays
-from messyerraytracer_tpu.render import framebuffer as fbch
-from messyerraytracer_tpu.render.camera import CameraParams
-from messyerraytracer_tpu.render.renderer import RayRenderer, RenderSettings
-from messyerraytracer_tpu.render.shade import (
+from messyerraytracer.core.types import make_rays
+from messyerraytracer.render import framebuffer as fbch
+from messyerraytracer.render.camera import CameraParams
+from messyerraytracer.render.renderer import RayRenderer, RenderSettings
+from messyerraytracer.render.shade import (
     LIGHT_DIRECTIONAL,
     extract_surface,
     light_sample,
@@ -29,13 +29,13 @@ from messyerraytracer_tpu.render.shade import (
     make_lights,
     make_materials,
 )
-from messyerraytracer_tpu.render.textures import (
+from messyerraytracer.render.textures import (
     TextureRegistry,
     sample_bilinear,
 )
-from messyerraytracer_tpu.render.wavefront import WavefrontPathTracer
-from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.render.wavefront import WavefrontPathTracer
+from messyerraytracer.scene.scene import build_scene_from_tri_array
+from messyerraytracer.utils import meshes
 
 
 def _floor_scene():

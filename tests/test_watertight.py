@@ -1,51 +1,36 @@
-"""Watertightness + traversal-stack regression tests (VERDICT r4 #1).
+"""Watertightness + traversal-stack regression tests.
 
-The round-4 ``parity_2m: false`` regression was NOT a stack overflow
-(measured worst-case need at 2M tris = 35 < KSTACK = 64): it was a
-shared-edge crack — the cluster kernels' anchored precomputed-plane MT
-rounds an edge function differently from the classic Moller-Trumbore
-oracle, so an exactly edge-on hit computed v = -1.9e-7 and fell in
-NEITHER neighbor triangle.  Fixes under test here:
+Two failure classes a traversal kernel must never hide:
 
-  * MT_BARY_EPS acceptance band in the anchored dense phases
-    (kernels/cluster.py, cluster_v2.py) — interior-edge watertight;
-  * build-time worst-case stack bound (``ClusterScene.stack_need``,
-    cluster.py::_wide_stack_need) sizing the kernel SMEM stack
-    statically (``cluster_v2._kstack_for``);
-  * an in-kernel drop counter (``RayStats.stack_drops``) so a stack
-    drop can never again silently pass a bench.
+  * shared-edge cracks: an exactly edge-on ray lies in both neighbor
+    triangles in exact arithmetic; rounding that differs from the
+    oracle's (the card contracts FMAs) can put it in neither.  The
+    kernel's ``MT_BARY_EPS`` band (core/types.py) closes interior edges;
+  * stack overflow: the kernel's per-lane stack is sized from the built
+    tree's depth (``walk.stack_depth``) and counts any dropped push in
+    ``RayStats.stack_drops``, so a drop can never silently pass a bench.
 
 Reference behavior: TinyBVH traverses until its stack empties
 (thirdparty/tinybvh/tiny_bvh.h Intersect) — it has no drop path at all.
 """
 
 import numpy as np
+import jax.numpy as jnp
 import pytest
 
-from messyerraytracer_tpu.core.brute import cast_rays_brute
-from messyerraytracer_tpu.core.types import NO_HIT, make_rays
-from messyerraytracer_tpu.kernels.cluster import (
-    KSTACK,
-    _wide_stack_need,
-    build_cluster_scene,
-    cast_rays_cluster,
-)
-from messyerraytracer_tpu.kernels import cluster_v2 as cv2
-from messyerraytracer_tpu.kernels.cluster_v2 import (
-    _kstack_for,
-    cast_rays_cluster_v2,
-)
-from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.accel.bvh import BVH
+from messyerraytracer.core.brute import cast_rays_brute
+from messyerraytracer.core.types import NO_HIT, make_rays, make_triangles
+from messyerraytracer.kernels.walk import cast_rays_walk, stack_depth
+from messyerraytracer.scene.scene import build_scene_from_tri_array
+from messyerraytracer.utils import meshes
 
 
-def wavy_scene(subdiv=16, tcap=16):
+def wavy_scene(subdiv=16):
     g = meshes.plane(10.0, y=0.0, subdiv=subdiv)
     g[:, :, 1] = (np.sin(g[:, :, 0] * 0.7)
                   * np.cos(g[:, :, 2] * 0.6)) * 1.5
-    base = build_scene_from_tri_array(g, backend="pallas")
-    cs = build_cluster_scene(base.bvh, base.tris, tcap=tcap)
-    return g, base, cs
+    return g, build_scene_from_tri_array(g)
 
 
 def shared_edge_points(tris, per_edge=4, max_edges=160):
@@ -73,15 +58,55 @@ def shared_edge_points(tris, per_edge=4, max_edges=160):
     return np.asarray(pts, np.float64)
 
 
+def comb_scene(levels):
+    """A hand-built comb BVH ``levels`` internal nodes deep: internal node
+    k (id 2k) has a one-triangle leaf on its left (id 2k+1) and the next
+    comb node on its right (id 2k+2).  Every box spans the whole scene,
+    and rays along -z (split axis z) continue right first, so each level
+    leaves its leaf pending on the stack: the walk needs ``levels``
+    entries."""
+    n_leaf = levels + 1
+    z = -np.arange(n_leaf, dtype=np.float32) - 1.0     # slot j at z=-1-j
+    v0 = np.stack([np.full(n_leaf, -1.0), np.full(n_leaf, -1.0), z], 1)
+    v1 = np.stack([np.full(n_leaf, 1.0), np.full(n_leaf, -1.0), z], 1)
+    v2 = np.stack([np.zeros(n_leaf), np.full(n_leaf, 1.0), z], 1)
+    tris = make_triangles(v0.astype(np.float32), v1.astype(np.float32),
+                          v2.astype(np.float32))
+    m = 2 * levels + 1
+    lf = np.zeros(m, np.int32)
+    cnt = np.zeros(m, np.int32)
+    depth = np.zeros(m, np.int32)
+    for k in range(levels):
+        lf[2 * k] = 2 * k + 2              # right child: next comb node
+        cnt[2 * k + 1] = 1
+        lf[2 * k + 1] = k                  # left leaf -> slot k
+        depth[2 * k] = k
+        depth[2 * k + 1] = k + 1
+    cnt[m - 1] = 1
+    lf[m - 1] = levels                     # last right leaf -> slot levels
+    depth[m - 1] = levels
+    lo = np.float32([-1, -1, z.min()])
+    hi = np.float32([1, 1, z.max()])
+    bvh = BVH(
+        aabb_min=jnp.asarray(np.tile(lo, (m, 1))),
+        aabb_max=jnp.asarray(np.tile(hi, (m, 1))),
+        left_first=jnp.asarray(lf), count=jnp.asarray(cnt),
+        tri_order=jnp.arange(n_leaf, dtype=jnp.int32),
+        split_axis=jnp.full((m,), 2, jnp.int32),
+        levels=tuple(jnp.asarray(np.nonzero(depth == d)[0].astype(np.int32))
+                     for d in range(levels + 1)),
+    )
+    rays = make_rays(np.float32([[0.1, -0.2, 1.0], [0.3, 0.1, 1.0]]),
+                     np.float32([[0, 0, -1], [0, 0, -1]]))
+    return bvh, tris, rays
+
+
 class TestWatertight:
     def test_edge_on_rays_no_cracks(self):
         """Rays aimed exactly at interior shared edges: wherever the
-        oracle reports a hit, the cluster kernel must too (either
-        neighbor is a correct closest hit), with t matching closely.
-        This is the 2M parity failure shrunk to an interpret-mode
-        scene: before the MT_BARY_EPS fix, edge-on hits could round
-        into neither neighbor and return a MISS."""
-        g, base, cs = wavy_scene()
+        oracle reports a hit, the kernel must too (either neighbor is a
+        correct closest hit), with t matching closely."""
+        g, scene = wavy_scene()
         pts = shared_edge_points(np.asarray(g, np.float64))
         assert len(pts) >= 200
         origin = np.float64([0.3, 9.0, 11.0])
@@ -89,132 +114,73 @@ class TestWatertight:
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         rays = make_rays(np.tile(origin.astype(np.float32), (len(pts), 1)),
                          d.astype(np.float32))
-        hb, _ = cast_rays_brute(rays, base.tris)
-        h2, s2, _ = cast_rays_cluster_v2(rays, cs)
-        pb = np.asarray(hb.prim_id)
-        p2 = np.asarray(h2.prim_id)
-        tb = np.asarray(hb.t)
-        t2 = np.asarray(h2.t)
+        hb, _ = cast_rays_brute(rays, scene.tris)
+        hk, sk = scene.cast_rays(rays)
+        pb, pk = np.asarray(hb.prim_id), np.asarray(hk.prim_id)
+        tb, tk = np.asarray(hb.t), np.asarray(hk.t)
         oracle_hit = pb != NO_HIT
         assert oracle_hit.sum() >= 100
-        # no cracks: kernel never misses where the oracle hits
-        cracks = oracle_hit & (p2 == NO_HIT)
+        cracks = oracle_hit & (pk == NO_HIT)
         assert cracks.sum() == 0, f"crack rays: {np.nonzero(cracks)[0]}"
-        np.testing.assert_allclose(t2[oracle_hit], tb[oracle_hit],
+        np.testing.assert_allclose(tk[oracle_hit], tb[oracle_hit],
                                    rtol=1e-4)
-        # kernel may resolve a tie to the OTHER neighbor; t must agree
-        # to formulation rounding (bench.py parity TIE_RTOL)
-        swapped = oracle_hit & (p2 != pb)
-        assert np.all(np.abs(t2[swapped] - tb[swapped])
+        # the kernel may resolve a tie to the OTHER neighbor; t must
+        # agree to formulation rounding (bench.py parity TIE_RTOL)
+        swapped = oracle_hit & (pk != pb)
+        assert np.all(np.abs(tk[swapped] - tb[swapped])
                       <= 4e-6 * np.maximum(np.abs(tb[swapped]), 1.0))
-        # v1 shares the dense phase and must stay watertight too
-        h1, _, _ = cast_rays_cluster(rays, cs)
-        assert ((np.asarray(h1.prim_id) == NO_HIT) & oracle_hit).sum() == 0
-        assert int(s2.stack_drops) == 0
+        assert int(sk.stack_drops) == 0
 
     def test_stack_need_bounds_exact_traversal(self):
-        """cs.stack_need upper-bounds the EXACT transient stack peak of
-        the kernel's push/pop discipline in BOTH direction-sign push
-        orders, on a real built upper tree."""
-        _, base, cs = wavy_scene(subdiv=24, tcap=8)
-        # rebuild host-side wide tree exactly as build_cluster_scene
-        from messyerraytracer_tpu.kernels.cluster import cluster_cut
-        from messyerraytracer_tpu.kernels.wide import _collapse8
-
-        host = base.bvh.host
-        amin, amax = host["aabb_min"], host["aabb_max"]
+        """stack_depth(levels) upper-bounds the EXACT worst-case stack
+        peak of the kernel's discipline (continue into one child, push
+        the other) on a real built tree, in BOTH child orders."""
+        _, scene = wavy_scene(subdiv=24)
+        host = scene.bvh.host
         lf, cnt = host["left_first"], host["count"]
-        roots, _, _ = cluster_cut(lf, cnt, cs.tcap)
-        is_cluster = np.zeros(len(cnt), bool)
-        is_cluster[roots] = True
-        ucnt = np.where(is_cluster, 1, 0).astype(np.int32)
-        children, _ = _collapse8(amin, amax, lf, ucnt)
-        children = np.asarray(children, np.int32)
-        present = children >= 0
-        ck = np.where(present, children, 0)
-        internal_kid = present & ~is_cluster[ck]
-        bound = _wide_stack_need(children, internal_kid)
-        assert bound == cs.stack_need
 
-        kid_rows = children[internal_kid]
-        wide_row_of = {int(b): i + 1 for i, b in enumerate(kid_rows)}
+        def peak(first_is_left):
+            best, todo = 0, [(0, 0)]          # (node, stack size there)
+            while todo:
+                node, sp = todo.pop()
+                best = max(best, sp)
+                if cnt[node] > 0:
+                    continue
+                a, b = node + 1, int(lf[node])
+                first, second = (a, b) if first_is_left else (b, a)
+                todo.append((first, sp + 1))  # second waits on the stack
+                todo.append((second, sp))
+            return best
 
-        def exact_peak(reverse):
-            peak, sp = 1, 1
-            stack = [0]
-            while stack:
-                w = stack.pop()
-                sp -= 1
-                kids = [wide_row_of[int(b)]
-                        for j, b in enumerate(children[w])
-                        if internal_kid[w, j]]
-                if reverse:
-                    kids = kids[::-1]
-                for kw in kids:
-                    stack.append(kw)
-                    sp += 1
-                    peak = max(peak, sp)
-            return peak
-
-        assert exact_peak(False) <= bound
-        assert exact_peak(True) <= bound
+        bound = stack_depth(len(scene.bvh.levels))
+        assert peak(True) <= len(scene.bvh.levels) - 1 <= bound
+        assert peak(False) <= len(scene.bvh.levels) - 1 <= bound
 
     def test_stack_need_synthetic_deep_comb(self):
-        """A synthetic comb tree (every wide node = 2 internal kids)
-        needs depth+1 stack entries — build one 100 levels deep and
-        check the bound exceeds the historical KSTACK and that
-        _kstack_for sizes the kernel stack above it (the old kernel
-        would silently drop pushes here)."""
-        depth = 100
-        nw = 2 * depth + 1
-        children = np.full((nw, 8), -1, np.int64)
-        internal = np.zeros((nw, 8), bool)
-        # comb: chain rows 0,2,4,... each with TWO internal kids (a
-        # dead-end + the next chain node), so every level leaves one
-        # sibling on the stack -> need = depth + 1.  Kid binary ids are
-        # assigned in row-major flatten order to match _wide_stack_need's
-        # wide_row_of mapping (kid at flatten position j -> row j+1).
-        nid = 0
-        for i in range(depth):
-            w = 2 * i
-            children[w, 0] = nid          # -> row 2i+1 (dead end)
-            children[w, 1] = nid + 1      # -> row 2i+2 (chain)
-            nid += 2
-            internal[w, 0] = internal[w, 1] = True
-        need = _wide_stack_need(children, internal)
-        assert need > KSTACK
-        assert need <= depth + 2
-        assert _kstack_for(need, 1) >= need + 2
-        assert _kstack_for(need, 2) >= need + 10
+        """A 100-level comb needs 100 stack entries: the stack sized from
+        the tree's levels holds them all, and every leaf is reached."""
+        bvh, tris, rays = comb_scene(100)
+        depth = stack_depth(len(bvh.levels))
+        assert depth >= 100
+        hits, stats, _ = cast_rays_walk(rays, bvh, tris)
+        ref, _ = cast_rays_brute(rays, tris)
+        np.testing.assert_array_equal(np.asarray(hits.prim_id),
+                                      np.asarray(ref.prim_id))
+        np.testing.assert_array_equal(np.asarray(hits.prim_id), [0, 0])
+        assert int(stats.stack_drops) == 0
+        assert int(stats.tri_tests) == 2 * 101    # every leaf visited
 
     def test_stack_drop_counter_not_silent(self):
-        """Force an undersized stack through the low-level entry point:
-        the kernel must COUNT dropped pushes (pops_out lane 2 ->
-        RayStats.stack_drops), never silently return wrong hits with a
-        zero counter."""
-        _, base, cs = wavy_scene(subdiv=20, tcap=8)
-        assert cs.stack_need >= 3, "scene too shallow to force drops"
-        rng = np.random.default_rng(0)
-        o = rng.uniform(-4, 4, (256, 3)).astype(np.float32)
-        o[:, 1] = 6.0
-        d = rng.normal(size=(256, 3)).astype(np.float32)
-        d[:, 1] = -np.abs(d[:, 1]) - 0.5
-        d /= np.linalg.norm(d, axis=1, keepdims=True)
-        rays = make_rays(o, d)
-        srows = 16
-        num_tiles = cv2._bucket_tiles(rays.count, srows * 128)
-        packed = cv2._pack_ray_fields(rays, num_tiles, srows, True)
-        live = cv2._tile_liveness(rays, num_tiles, srows)
-        _, _, pops = cv2._call_cluster_v2(
-            packed, cs.nodes, cs.ablocks, live, any_hit=False,
-            interpret=True, num_tiles=num_tiles, dummy_enc=cs.dummy_enc,
-            srows=srows, tcap=cs.tcap, qd=4, kstack=1,
-        )
-        assert int(np.asarray(pops)[0, 2]) > 0
-        # properly-sized cast on the same scene: zero drops, surfaced
-        # through the public stats
-        _, stats, _ = cast_rays_cluster_v2(rays, cs)
+        """Force an undersized stack: the kernel must COUNT dropped
+        pushes (RayStats.stack_drops), never silently return wrong hits
+        with a zero counter."""
+        bvh, tris, rays = comb_scene(40)
+        _, stats, _ = cast_rays_walk(rays, bvh, tris, depth=16)
+        assert int(stats.stack_drops) == 2 * (40 - 16)
+        # properly-sized cast on the same scene: zero drops
+        hits, stats, _ = cast_rays_walk(rays, bvh, tris)
         assert int(stats.stack_drops) == 0
+        np.testing.assert_array_equal(np.asarray(hits.prim_id), [0, 0])
 
 
 if __name__ == "__main__":

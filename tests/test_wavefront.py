@@ -4,16 +4,16 @@ iterative tracer."""
 import numpy as np
 import jax.numpy as jnp
 
-from messyerraytracer_tpu.render.camera import CameraParams, generate_rays
-from messyerraytracer_tpu.render.pathtrace import PathTracer, PathTraceParams
-from messyerraytracer_tpu.render.shade import (
+from messyerraytracer.render.camera import CameraParams, generate_rays
+from messyerraytracer.render.pathtrace import PathTracer, PathTraceParams
+from messyerraytracer.render.shade import (
     make_environment,
     make_lights,
     make_materials,
 )
-from messyerraytracer_tpu.render.wavefront import WavefrontPathTracer
-from messyerraytracer_tpu.scene.scene import build_scene_from_tri_array
-from messyerraytracer_tpu.utils import meshes
+from messyerraytracer.render.wavefront import WavefrontPathTracer
+from messyerraytracer.scene.scene import build_scene_from_tri_array
+from messyerraytracer.utils import meshes
 
 
 def setup_scene():
@@ -68,7 +68,7 @@ class TestWavefront:
         # throughput(=1) * sky at bounce 0 and stay untouched by the
         # deferred-NEE/finalize machinery (pt_shade.comp.glsl:598-647
         # inactive-path semantics).
-        from messyerraytracer_tpu.render.shade import sky_color
+        from messyerraytracer.render.shade import sky_color
 
         scene, lights, env, mats, _ = setup_scene()
         cam = CameraParams.look_at((0, 20, 0), (0, 30, 5), fov_degrees=50)
@@ -105,14 +105,14 @@ class TestWavefront:
         assert with_finalize.sum() > without_finalize.sum() + 1e-3
 
     def test_single_jit_frame_matches_eager_stages(self):
-        # The production single-dispatch jitted frame (cluster backend)
+        # The production single-dispatch jitted frame (kernel backend)
         # must equal the eager per-stage path bit-for-bit in RNG usage
         # (same PCG32 streams) and match numerically.
         tris = np.concatenate(
             [meshes.cornell_room(4.0),
              meshes.uv_sphere(0.8, 8, 16, center=(0, -1.2, 0))]
         )
-        scene = build_scene_from_tri_array(tris)  # cluster backend
+        scene = build_scene_from_tri_array(tris)  # kernel backend
         _, lights, env, mats, rays = setup_scene()
         wf = WavefrontPathTracer(scene, lights, env, mats)
         jit_img = np.asarray(wf.trace_frame(rays, max_bounces=2,
@@ -298,7 +298,7 @@ class TestInstancedPT:
         # meshes, never flattening): the reference's CPU PT traces
         # through the TLAS dispatcher (cpu_path_tracer.h:56-223 ->
         # scene_tlas.h:203-251)
-        from messyerraytracer_tpu.accel.tlas import SceneTLAS
+        from messyerraytracer.accel.tlas import SceneTLAS
 
         def translate(t):
             m = np.zeros((3, 4), np.float32)
@@ -308,7 +308,7 @@ class TestInstancedPT:
 
         room = meshes.cornell_room(4.0)
         ball = meshes.uv_sphere(0.7, 8, 16)
-        tlas = SceneTLAS(backend="cluster")
+        tlas = SceneTLAS()
         rid = tlas.add_mesh(room)
         bid = tlas.add_mesh(ball)
         tlas.add_instance(rid, translate((0, 0, 0)))

@@ -1,7 +1,7 @@
 """Generate docs/API.md — the rendered API reference.
 
 The reference ships generated per-class XML docs (doc_classes/*.xml,
-rendered by Godot's doc pipeline); the TPU framework's equivalent is a
+rendered by Godot's doc pipeline); this framework's equivalent is a
 single rendered markdown reference extracted from the live package:
 every public module, class, dataclass field block, and function
 signature with the first paragraph of its docstring.
@@ -20,7 +20,7 @@ import sys
 sys.path.insert(0, ".")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-PACKAGE = "messyerraytracer_tpu"
+PACKAGE = "messyerraytracer"
 OUT = os.path.join("docs", "API.md")
 
 SKIP_MODULES = {"conftest"}
@@ -89,17 +89,17 @@ def main():
 
     pkg = importlib.import_module(PACKAGE)
     lines = [
-        "# messyerraytracer_tpu — API reference",
+        "# messyerraytracer — API reference",
         "",
         "Generated by `python tools/gen_api_docs.py` — do not edit by "
         "hand.  The reference project ships generated per-class docs "
-        "(doc_classes/*.xml); this file is the TPU framework's rendered "
+        "(doc_classes/*.xml); this file is this framework's rendered "
         "equivalent, extracted from the live package docstrings.",
         "",
     ]
 
     # top-level exports first (the api firewall surface)
-    lines.append("## Top-level exports (`import messyerraytracer_tpu`)\n")
+    lines.append("## Top-level exports (`import messyerraytracer`)\n")
     for n, obj in public_members(pkg):
         kind = "class" if inspect.isclass(obj) else "def"
         doc = first_paragraph(obj.__doc__)

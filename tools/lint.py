@@ -3,7 +3,7 @@
 tools/lint.py (966 lines, 8 rule families: header, tiger, gpu, module,
 naming, godot-native, no-exceptions, tinybvh).
 
-Rule families here, mapped from the reference's intent to a JAX/TPU
+Rule families here, mapped from the reference's intent to a JAX
 codebase:
 
   header     every module starts with a docstring
@@ -18,7 +18,7 @@ codebase:
              (the spirit of assertion-density "tiger" rules: the invariant
              story must be written down, lint.py:213-296)
   naming     tests are tests/test_*.py; pytree dataclasses are CamelCase
-  f64        no float64 dtypes in library code (TPU performance trap)
+  f64        no float64 dtypes in library code (device performance trap)
 
 Suppressions: a line containing ``# lint: off`` is skipped; a module
 docstring containing ``lint: skip-cite`` skips the cite rule.
@@ -35,7 +35,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PKG = ROOT / "messyerraytracer_tpu"
+PKG = ROOT / "messyerraytracer"
 
 # layer order: lower may not import higher
 LAYERS = {
@@ -127,7 +127,7 @@ def check_file(path: Path, lint: Lint, families: set[str]):
                          "torch import in the compute path")
             if "module" in families and layer in LAYERS:
                 target = None
-                if m.startswith("messyerraytracer_tpu."):
+                if m.startswith("messyerraytracer."):
                     target = m.split(".")[1]
                 elif m.startswith("..") and not m.startswith("..."):
                     target = m[2:].split(".")[0]
